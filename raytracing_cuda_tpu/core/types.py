@@ -1,4 +1,4 @@
-"""Pytree data types for the TPU renderer.
+"""Pytree data types for the renderer.
 
 Struct-of-arrays re-design of the reference's AoS POD types (structs.h:8-51):
 the unified `Object` (one struct per object, type-tagged union of

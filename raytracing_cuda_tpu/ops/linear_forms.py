@@ -1,9 +1,9 @@
-"""Intersection tests as hoisted linear forms — the TPU-fast formulation.
+"""Intersection tests as hoisted linear forms.
 
 The reference tests rays against objects with per-pair vector math
 (checkHit, kernel.cu:41-129): Möller-Trumbore materializes a cross product
 per (ray, triangle) pair and the sphere test a center-offset vector per
-(ray, sphere) pair. Vectorized naively on TPU that costs O(pixels×objects×3)
+(ray, sphere) pair. Vectorized naively that costs O(pixels×objects×3)
 HBM traffic — the bandwidth wall the first-cut renderer hit.
 
 Key identity: every accept/reject quantity in those tests is *linear* in a

@@ -11,22 +11,18 @@ sequentially (replicated, trivially cheap), then each device renders its
 contiguous block of frames with the SAME single-frame program the
 engine's hot path runs (render_frame_static_sky), so output matches
 stepping the single-chip engine frame by frame — pinned bit-identical on
-CPU meshes by tests/test_parallel.py. (On compiled TPU the scan/map
-wrapping gives XLA a different fusion context than the fused per-frame
-program, and this repo has measured that CPU bit-identity does not
-guarantee compiled-TPU bit-identity — quantize-boundary pixels may flip
-by one ulp, far inside the 2e-3 parity gates; see the planar-epilogue
-entry in docs/PERFORMANCE.md.) There are no collectives in the render
-loop at all; the only cross-device traffic is the output gather at
-readback.
+CPU meshes by tests/test_parallel.py. (On a GPU the scan/map wrapping
+gives XLA a different fusion context than the fused per-frame program, so
+quantize-boundary pixels may move by a level, inside the parity gate.)
+There are no collectives in the render loop at all; the only cross-device
+traffic is the output gather at readback.
 
-Expected scaling on real multi-chip hardware is ~linear in devices — the
-per-frame render has no cross-frame dependency and the ~5 KB scene and
-static sky stack are replicated — which is the right trade for offline
-batches, where the row-sharded path's per-frame halo exchange and
-skewed-band work balance buy nothing. Like everywhere else, the static
-sky pack rides as a runtime ARGUMENT (a closed-over pack would be baked
-into the executable as a multi-GB constant).
+The per-frame render has no cross-frame dependency and the ~5 KB scene and
+static sky stack are replicated, so throughput should scale with devices —
+the right trade for offline batches, where the row-sharded path's
+per-frame halo exchange and skewed-band work balance buy nothing. Like
+everywhere else, the static sky pack rides as a runtime ARGUMENT (a
+closed-over pack would be baked into the executable as a constant).
 """
 
 from __future__ import annotations
@@ -85,7 +81,7 @@ def render_script_dp(scene: Scene, state: FrameState, sky_pack,
     Returns (imgs (K, H, W, 3) uint8 sharded on the frame axis,
     last_state). Frame k's image matches the k-th Engine.step_and_frame
     from the same initial state (bit-identical on CPU meshes; within the
-    parity gates on compiled TPU — see the module docstring).
+    parity gate on a GPU — see the module docstring).
     """
     from raytracing_cuda_tpu.render.pipeline import render_frame_static_sky
     from raytracing_cuda_tpu.sim.actions import Action
@@ -130,10 +126,8 @@ def render_script_dp(scene: Scene, state: FrameState, sky_pack,
 
 def make_hybrid_mesh(n_frames: int, n_rows: int) -> Mesh:
     """2-D (frames, rows) device mesh: n_frames frame-DP groups of n_rows
-    row-sharded devices each. The rows axis is the MINOR (fastest-varying)
-    axis so each frame group's halo ppermutes ride adjacent-device ICI
-    links, exactly like the 1-D row mesh; the frames axis needs no
-    communication at all, so its placement is free."""
+    row-sharded devices each. Only the rows axis communicates (the FXAA
+    halo ppermutes); the frames axis needs no communication at all."""
     import numpy as np
 
     devices = jax.devices()
@@ -153,7 +147,7 @@ def make_hybrid_mesh(n_frames: int, n_rows: int) -> Mesh:
     jax.jit,
     static_argnames=("mesh", "sky_h", "sky_w", "height", "width", "aspect",
                      "fxaa_static", "tri_clusters", "sph_clusters",
-                     "interpret", "t_subs", "interleave", "sky_mode"),
+                     "interpret", "t_subs", "interleave"),
 )
 def render_script_hybrid(scene: Scene, state: FrameState, sky_pack,
                          action_vecs, *, mesh: Mesh, sky_h: int, sky_w: int,
@@ -164,26 +158,25 @@ def render_script_hybrid(scene: Scene, state: FrameState, sky_pack,
                          sph_clusters: tuple | None = None,
                          interpret: bool = False,
                          t_subs: tuple | None = None,
-                         interleave: int = 1, sky_mode: str = "auto"):
+                         interleave: int = 1):
     """Scripted animation over a 2-D (frames, rows) mesh — frame data
     parallelism composed with row sharding in ONE program.
 
-    This is the layout an offline render farm on a pod slice wants: frame
-    groups scale throughput with zero communication, and the rows axis
+    This is the layout an offline render farm wants: frame groups scale
+    throughput with zero communication, and the rows axis
     inside each group shards the per-frame work so a frame's latency (and
     its per-device memory) stays bounded as frames grow heavier. The row
     axis reuses the exact band renderer of the 1-D row mesh
     (parallel/mesh.band_shard_fn) — its FXAA halo ppermutes name only the
     rows axis, so mapping it over each device's local frames composes
     freely with the frames axis. Output frame k matches the k-th
-    single-chip Engine.step_and_frame (bit-identical on CPU meshes,
-    pinned by tests/test_parallel.py; parity gates on compiled TPU).
+    single-device Engine.step_and_frame (bit-identical on CPU meshes,
+    pinned by tests/test_parallel.py; within the parity gate on a GPU).
 
     K must divide over the frames axis and height over rows*interleave;
     sky_pack is the static stack from sky_static_init, replicated.
     """
     from raytracing_cuda_tpu.parallel.mesh import (AXIS as ROWS,
-                                                   _resolve_grouped,
                                                    band_shard_fn,
                                                    uninterleave_rows)
     from raytracing_cuda_tpu.sim.actions import Action
@@ -203,12 +196,6 @@ def render_script_hybrid(scene: Scene, state: FrameState, sky_pack,
     if aspect is None:
         aspect = width / height
     path = "pallas_interpret" if interpret else "pallas"
-    sky_grouped = _resolve_grouped(sky_mode, sky_h, sky_w, path, sub, width)
-    if sky_grouped != (sky_pack.ndim == 3):
-        raise ValueError(
-            f"sky_pack rank {sky_pack.ndim} does not match the "
-            f"{'grouped' if sky_grouped else 'flat'} resolve — build it "
-            f"with sky_static_init(texels, grouped={sky_grouped})")
 
     # sequential host state machine (identical to render_script_dp)
     def pre(carry, av):
@@ -230,7 +217,7 @@ def render_script_hybrid(scene: Scene, state: FrameState, sky_pack,
 
     band = band_shard_fn(
         path=path, sub=sub, width=width, n=nr, interleave=interleave,
-        height=height, sky_grouped=sky_grouped, sh=sky_h, sw=sky_w,
+        height=height, sh=sky_h, sw=sky_w,
         tri_clusters=tri_clusters, sph_clusters=sph_clusters,
         t_subs=t_subs, chunk=0)
 

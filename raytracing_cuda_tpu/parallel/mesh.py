@@ -1,17 +1,16 @@
-"""Multi-chip framebuffer sharding over a jax.sharding.Mesh.
+"""Multi-device framebuffer sharding over a jax.sharding.Mesh.
 
 The reference is strictly single-GPU (SURVEY.md §2 parallelism audit: no
 NCCL/MPI anywhere); its only parallelism is the per-pixel CUDA grid. The
-TPU-native scale-out shards the framebuffer by row bands across an ICI mesh
-with shard_map: the ~5 KB scene and the sky texture are replicated, each
-device raytraces its band (ray generation is positioned by a global row
-offset carried in the megakernel's SMEM params vector, so every band runs
-the SAME compiled kernel and shard output is bit-identical to the
-single-chip render), and the FXAA stencil exchanges 1-row halos with
-neighbor devices via lax.ppermute — the only collective in the frame,
-riding ICI.
+scale-out here shards the framebuffer by row bands over a 1-D device mesh
+with shard_map: the ~5 KB scene and the sky are replicated, each device
+raytraces its band (ray generation is positioned by a global row offset
+carried in the kernel's params vector, so every band runs the SAME compiled
+kernel and the sharded frame matches the single-device render), and the
+FXAA stencil exchanges 1-row halos with neighbour devices via
+lax.ppermute — the only collective in the frame.
 
-Like the single-chip engine, the sharded Pallas path resolves the sky from
+Like the single-device engine, the sharded kernel path looks the sky up in
 the STATIC all-panorama stack (textures.sky_static_init, replicated): the
 ≤2 active panoramas are blended per fetched texel, so no per-frame
 blend+pack exists and frame cost is flat across the 24 h clock including
@@ -27,7 +26,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from raytracing_cuda_tpu.core.types import Scene
-from raytracing_cuda_tpu.render.fxaa import fxaa_ext, fxaa_ext_pallas
+from raytracing_cuda_tpu.render.fxaa import fxaa_ext
 from raytracing_cuda_tpu.render.fast import render_base_image_fast
 from raytracing_cuda_tpu.scene.textures import blend_sky
 from raytracing_cuda_tpu.sim.state import FrameState, camera_rays, derive_frame
@@ -43,29 +42,7 @@ def make_mesh(n_devices: int | None = None) -> Mesh:
     return Mesh(devices, (AXIS,))
 
 
-def _resolve_grouped(sky_mode: str, sh: int, sw: int, path: str,
-                     band: int, width: int) -> bool:
-    from raytracing_cuda_tpu.scene.textures import (grouped_sky_ok,
-                                                    sky_group_for_width)
-
-    if not path.startswith("pallas"):
-        return False
-    # sample_sky_grouped picks its group size from the row width; the
-    # band-local flatten partitions into the same groups as the full-frame
-    # flatten ONLY when each band's pixel count is group-aligned — required
-    # for the sharded == single-chip bit-parity contract
-    group = sky_group_for_width(width)
-    aligned = (band * width) % group == 0
-    if sky_mode == "grouped":
-        if not aligned:
-            raise ValueError(
-                f"sky_mode='grouped' needs band*width ({band}x{width}) "
-                f"divisible by the {group}-pixel sky group; use 'flat'")
-        return True
-    return sky_mode == "auto" and aligned and grouped_sky_ok(sh, sw)
-
-
-def band_shard_fn(*, path, sub, width, n, interleave, height, sky_grouped,
+def band_shard_fn(*, path, sub, width, n, interleave, height,
                   sh, sw, tri_clusters, sph_clusters, t_subs, chunk):
     """The per-device row-band render body, as a function of one frame's
     arrays: (scene_f, lights, ambient, packed, rays, day_frac, aa,
@@ -85,15 +62,15 @@ def band_shard_fn(*, path, sub, width, n, interleave, height, sky_grouped,
 
         def render_chunk(chunk_id):
             """One (sub, width) row chunk starting at global row
-            chunk_id*sub. chunk_id is traced — on the pallas path the row
-            offset rides the SMEM params vector, so every chunk of every
-            device runs the SAME compiled megakernel."""
+            chunk_id*sub. chunk_id is traced — on the kernel path the row
+            offset rides the params vector, so every chunk of every device
+            runs the SAME compiled kernel."""
             if path.startswith("pallas"):
                 from raytracing_cuda_tpu.render.pallas_rt import (
                     render_base_planes_pallas)
                 from raytracing_cuda_tpu.render.reference import quantize
                 from raytracing_cuda_tpu.scene.textures import (
-                    sample_sky_grouped_pair, sample_sky_packed_pair)
+                    sample_sky_packed_pair)
 
                 planes = render_base_planes_pallas(
                     scene_f, lights, ambient, rays, sub, width,
@@ -103,13 +80,8 @@ def band_shard_fn(*, path, sub, width, n, interleave, height, sky_grouped,
                     total_height=height, t_subs=t_subs)
                 r, g, b, mw, mdx, mdy, mdz = planes
                 mdir = jnp.stack([mdx, mdy, mdz], axis=-1)
-                if sky_grouped:
-                    sky = sample_sky_grouped_pair(packed, sh, sw, mdir,
-                                                  day_frac, sky_vars,
-                                                  valid=mw > 0)
-                else:
-                    sky = sample_sky_packed_pair(packed, sh, sw, mdir,
-                                                 day_frac, sky_vars)
+                sky = sample_sky_packed_pair(packed, sh, sw, mdir, day_frac,
+                                             sky_vars)
                 return quantize(jnp.stack([r, g, b], axis=-1)
                                 + mw[..., None] * sky)
             return render_base_image_fast(scene_f, lights, ambient, packed,
@@ -140,15 +112,13 @@ def band_shard_fn(*, path, sub, width, n, interleave, height, sky_grouped,
             halo_bot = halo_bot + jax.lax.ppermute(
                 jnp.concatenate([F[1:], zrow], axis=0), AXIS, [(0, n - 1)])
 
-        fxaa_band = (fxaa_ext_pallas if path == "pallas" else fxaa_ext)
-
         def aa_chunks(args):
             bases, halo_top, halo_bot = args
             outs = []
             for j, b in enumerate(bases):
                 ext = jnp.concatenate([halo_top[j:j + 1], b,
                                        halo_bot[j:j + 1]], axis=0)
-                outs.append(fxaa_band(ext, row0=(idx + j * n) * sub,
+                outs.append(fxaa_ext(ext, row0=(idx + j * n) * sub,
                                       total_height=height))
             return jnp.concatenate(outs, axis=0)
 
@@ -175,7 +145,7 @@ def uninterleave_rows(img, n: int, interleave: int, sub: int, width: int):
     jax.jit,
     static_argnames=("mesh", "height", "width", "chunk", "aspect",
                      "fxaa_static", "path", "tri_clusters", "sph_clusters",
-                     "sky_mode", "interleave", "t_subs"),
+                     "interleave", "t_subs"),
 )
 def render_frame_sharded(scene: Scene, state: FrameState, sky_texels, *,
                          mesh: Mesh, height: int, width: int,
@@ -184,17 +154,16 @@ def render_frame_sharded(scene: Scene, state: FrameState, sky_texels, *,
                          path: str = "fast",
                          tri_clusters: tuple | None = None,
                          sph_clusters: tuple | None = None,
-                         sky_mode: str = "auto",
                          sky_pack=None, interleave: int = 1,
                          t_subs: tuple | None = None):
     """Row-sharded render of one frame → (height, width, 3) uint8.
 
     Output matches render_frame exactly: rays are generated from global row
-    coordinates and FXAA sees true neighbor rows through an ICI halo
-    exchange instead of band-local padding.
+    coordinates and FXAA sees true neighbour rows through a halo exchange
+    instead of band-local padding.
 
-    Pallas paths require sky_pack (the static stack from
-    textures.sky_static_init, replicated on every device); non-Pallas paths
+    Kernel paths require sky_pack (the static stack from
+    textures.sky_static_init, replicated on every device); the other paths
     blend the panoramas per frame from sky_texels like render_frame.
 
     interleave = k > 1 assigns each device k STRIDED sub-bands (device d
@@ -203,10 +172,8 @@ def render_frame_sharded(scene: Scene, state: FrameState, sky_texels, *,
     hit water reflections — so striding balances the per-device load; the
     cost is k kernel launches per device (inside one program) and 2k halo
     rows instead of 2. Bit-identical output by construction (pinned by
-    tests/test_parallel.py). On the CPU test mesh there is no timing signal;
-    on real multi-chip hardware the expected win is the gap between the
-    heaviest and mean band (the 2000-frame soak saw 2.4x content spread
-    across the frame — docs/PERFORMANCE.md).
+    tests/test_parallel.py). The expected win is the gap between the
+    heaviest and the mean band; it is not measured yet.
     """
     n = mesh.shape[AXIS]
     if interleave < 1:
@@ -225,24 +192,17 @@ def render_frame_sharded(scene: Scene, state: FrameState, sky_texels, *,
     aa = state.aa if fxaa_static is None else jnp.bool_(fxaa_static)
 
     sh, sw = sky_texels.shape[1], sky_texels.shape[2]
-    # group alignment applies per strided chunk (the band when interleave=1)
-    sky_grouped = _resolve_grouped(sky_mode, sh, sw, path, sub, width)
     if path.startswith("pallas"):
         if sky_pack is None:
-            raise ValueError("pallas paths need sky_pack "
+            raise ValueError("kernel paths need sky_pack "
                              "(textures.sky_static_init)")
-        if sky_grouped != (sky_pack.ndim == 3):
-            raise ValueError(
-                f"sky_pack rank {sky_pack.ndim} does not match the "
-                f"{'grouped' if sky_grouped else 'flat'} resolve — build it "
-                f"with sky_static_init(texels, grouped={sky_grouped})")
         packed = sky_pack
     else:
         packed = blend_sky(sky_texels, state.sky_vars)
 
     shard_fn = band_shard_fn(
         path=path, sub=sub, width=width, n=n, interleave=interleave,
-        height=height, sky_grouped=sky_grouped, sh=sh, sw=sw,
+        height=height, sh=sh, sw=sw,
         tri_clusters=tri_clusters, sph_clusters=sph_clusters,
         t_subs=t_subs, chunk=chunk)
 

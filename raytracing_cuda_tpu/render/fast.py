@@ -1,5 +1,5 @@
-"""TPU-fast raytracer — same semantics as render.reference, restructured for
-the hardware.
+"""Fused-XLA raytracer — same semantics as render.reference, restructured
+for vector hardware (the CPU path; the GPU runs render.pallas_rt).
 
 Three structural differences from the parity oracle (render/reference.py),
 none observable in the output:

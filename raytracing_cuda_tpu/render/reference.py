@@ -1,6 +1,6 @@
 """Pure-jnp raytracer — the parity oracle and the default XLA render path.
 
-Functional re-expression of the reference's raytracing megakernel
+Functional re-expression of the reference's raytracing kernel
 (kernel.cu:131-259): the template-recursive trace<depth> becomes an iterative
 bounce loop carrying (origin, direction, throughput, color, live-mask) over
 masked vector lanes; the sequential 133-object nearest-hit and shadow loops
@@ -8,9 +8,9 @@ become batched intersections + reductions (ops.intersect); the per-ray
 4-texture sky blend becomes one gather into the per-frame pre-blended
 panorama (scene.textures.blend_sky — exact, see its docstring).
 
-Runs identically on CPU (golden frames) and TPU. Pixels are processed in
-fixed-size chunks via lax.map so peak memory stays bounded at any resolution
-— the TPU-native analogue of the reference's unbounded CUDA pixel grid
+Runs identically on the CPU (golden frames) and the GPU. Pixels are
+processed in fixed-size chunks via lax.map so peak memory stays bounded at
+any resolution — the analogue of the reference's unbounded CUDA pixel grid
 (kernel.cu:455-456).
 
 Semantics preserved exactly (for RMSE parity with the CUDA reference):

@@ -18,27 +18,18 @@ import time
 def trace(out_dir: str):
     """jax.profiler trace capture around a block of frame work.
 
-    Produces a TensorBoard/Perfetto-loadable dump under out_dir. On backends
-    without profiler support (some remote relays) this degrades to a no-op
-    with a warning rather than failing the run.
+    Produces a TensorBoard/Perfetto-loadable dump under out_dir. A backend
+    that cannot trace raises: a run asked to trace must not silently go
+    untraced.
     """
     import jax
 
     os.makedirs(out_dir, exist_ok=True)
-    try:
-        jax.profiler.start_trace(out_dir)
-        started = True
-    except Exception as e:  # pragma: no cover - backend dependent
-        print(f"[profiling] trace unavailable on this backend: {e}")
-        started = False
+    jax.profiler.start_trace(out_dir)
     try:
         yield
     finally:
-        if started:
-            try:
-                jax.profiler.stop_trace()
-            except Exception as e:  # pragma: no cover
-                print(f"[profiling] stop_trace failed: {e}")
+        jax.profiler.stop_trace()
 
 
 class FrameProbe:

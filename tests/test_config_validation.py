@@ -13,7 +13,7 @@ from raytracing_cuda_tpu.utils.config import RenderConfig
     {"chunk": 0},
     {"path": "cuda"}, {"path": ""},
     {"scene": "moon"},
-    {"sky_mode": "fancy"},
+    {"shard_interleave": 0}, {"preview": 0},
     {"sky_source": "png"},
     {"sky_downsample": 0},
     {"procedural_sky_shape": (4, 4)}, {"procedural_sky_shape": (64,)},

@@ -83,89 +83,3 @@ def test_horizontal_vs_vertical_edge_pick():
     outv = np.asarray(fxaa(jnp.asarray(imgv))).astype(int)
     assert (outv[1:-1, 7] > imgv[1:-1, 7]).all()
 
-
-# --- Pallas TPU FXAA kernel (render/fxaa.py Pallas variant) -----------------
-
-def test_pallas_fxaa_matches_oracle_on_rendered_frames():
-    """The Pallas kernel agrees with the XLA stencil on real frames.
-
-    Not bit-exact: luminance-comparison TIES (common on this scene's
-    flat-shaded pyramid edges) resolve differently under different XLA
-    fusions — both neighbor picks are valid FXAA. Gate: tiny mismatch
-    fraction and RMSE well inside the render parity budget."""
-    from raytracing_cuda_tpu.render.fxaa import fxaa_pallas
-    from raytracing_cuda_tpu.render.pipeline import render_frame
-    from raytracing_cuda_tpu.scene.builders import build_scene
-    from raytracing_cuda_tpu.scene.textures import procedural_skies
-    from tests.test_golden import CASES, make_state
-
-    scene = build_scene()
-    sky = jnp.asarray(procedural_skies(64, 128))
-    for name in ("island_morning", "mountains_day"):
-        base = render_frame(scene, make_state(**dict(CASES[name], aa=False)),
-                            sky, 96, 160, chunk=4096, path="fast",
-                            fxaa_static=False)
-        a = np.asarray(fxaa(base)).astype(int)
-        b = np.asarray(fxaa_pallas(base, interpret=True)).astype(int)
-        d = np.abs(a - b)
-        assert np.sqrt(np.mean((d / 255.0) ** 2)) < 2.5e-3, name
-        assert np.mean(d.max(-1) > 0) < 0.01, name
-
-
-def test_pallas_fxaa_band_matches_full_frame():
-    """fxaa_ext_pallas on an interior band with true halo rows must equal
-    the full-frame Pallas result on those rows (the sharded contract)."""
-    from raytracing_cuda_tpu.render.fxaa import fxaa_ext_pallas, fxaa_pallas
-
-    rng = np.random.default_rng(11)
-    img = jnp.asarray(rng.integers(0, 256, (64, 160, 3)).astype(np.uint8))
-    full = np.asarray(fxaa_pallas(img, interpret=True))
-    band = np.asarray(fxaa_ext_pallas(img[15:49], row0=16, total_height=64,
-                                      interpret=True))
-    assert np.array_equal(band, full[16:48])
-
-
-def test_pallas_fxaa_banded_bit_identical():
-    """Over-budget frames auto-split into row bands (1-row halos, global
-    row0) and must be bit-identical to the single-plane kernel — the same
-    property the ≥4K path relies on (VMEM ceiling guard, fxaa.py)."""
-    from raytracing_cuda_tpu.render.fxaa import (_fxaa_plane_bytes,
-                                                 fxaa_pallas)
-
-    rng = np.random.default_rng(19)
-    img = jnp.asarray(rng.integers(0, 256, (96, 160, 3)).astype(np.uint8))
-    full = np.asarray(fxaa_pallas(img, interpret=True))
-    # force banding with a budget that fits ~2 tile-rows per band
-    tiny = _fxaa_plane_bytes(32, 160, 16, 256) + 1
-    banded = np.asarray(fxaa_pallas(img, interpret=True, vmem_budget=tiny))
-    assert np.array_equal(banded, full)
-
-
-def test_pallas_fxaa_vmem_guard():
-    """4K fits the default budget; 8K exceeds it (clear fail-fast on the
-    band entry point, auto-banding on the frame entry point)."""
-    import pytest
-
-    from raytracing_cuda_tpu.render.fxaa import (FXAA_PALLAS_VMEM_BUDGET,
-                                                 _fxaa_plane_bytes,
-                                                 fxaa_ext_pallas)
-
-    assert _fxaa_plane_bytes(2176, 3840, 16, 256) <= FXAA_PALLAS_VMEM_BUDGET
-    assert _fxaa_plane_bytes(4320, 7680, 16, 256) > FXAA_PALLAS_VMEM_BUDGET
-    with pytest.raises(ValueError, match="VMEM"):
-        fxaa_ext_pallas(jnp.zeros((4322, 7680, 3), jnp.uint8), row0=0,
-                        total_height=4320, interpret=True)
-
-
-def test_pallas_fxaa_borders_and_toggle():
-    from raytracing_cuda_tpu.render.fxaa import apply_fxaa_pallas, fxaa_pallas
-
-    rng = np.random.default_rng(5)
-    img = rng.integers(0, 256, (24, 40, 3)).astype(np.uint8)
-    out = np.asarray(fxaa_pallas(jnp.asarray(img), interpret=True))
-    assert np.array_equal(out[0], img[0]) and np.array_equal(out[-1], img[-1])
-    assert np.array_equal(out[:, 0], img[:, 0])
-    assert np.array_equal(out[:, -1], img[:, -1])
-    off = np.asarray(apply_fxaa_pallas(jnp.asarray(img), jnp.bool_(False),
-                                       interpret=True))
-    assert np.array_equal(off, img)

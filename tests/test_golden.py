@@ -1,7 +1,7 @@
 """Golden-frame regression tests.
 
-Frozen oracle renders (tests/golden/*.png, 160x96, procedural 64x128 sky)
-gate every render path against semantic drift — the replacement for the
+Frozen oracle renders (tests/golden/*.png, 160x96, procedural 64x128 sky;
+utils.goldens) gate every render path against semantic drift — the replacement for the
 reference's purely visual verification (SURVEY.md §4). Tolerances allow
 float reassociation across paths/backends but catch any real change.
 
@@ -11,37 +11,20 @@ Regenerate (only when semantics intentionally change):
 
 import os
 
+import glob
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from PIL import Image
 
 from raytracing_cuda_tpu.render.pipeline import render_frame
 from raytracing_cuda_tpu.scene.builders import build_scene
 from raytracing_cuda_tpu.scene.textures import procedural_skies
 from raytracing_cuda_tpu.sim import state as sim
-from raytracing_cuda_tpu.sim.actions import Action
+from raytracing_cuda_tpu.utils.goldens import CASES, GOLDEN_DIR, make_state
+from raytracing_cuda_tpu.utils.images import load_png, parity
 
-GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 H, W = 96, 160
-
-
-def make_state(day, cp=None, sea=None, aa=True):
-    s = sim.init_state()._replace(day_time=jnp.float32(day))
-    if cp is not None:
-        s = sim.apply_controls(
-            s, Action.idle()._replace(cam_preset=np.int32(cp)), 0.0)
-    if sea is not None:
-        s = s._replace(sea_y=jnp.float32(sea))
-    return sim.settle(s._replace(aa=jnp.bool_(aa)))
-
-
-CASES = {
-    "island_morning": dict(day=6.0),
-    "mountains_day": dict(day=14.0, cp=1),
-    "island_night": dict(day=1.0),
-    "evening_flood_noaa": dict(day=18.0, sea=2.0, aa=False),
-}
 
 
 def classic_env():
@@ -73,8 +56,7 @@ def env():
 @pytest.mark.parametrize("path", ["oracle", "fast", "pallas_interpret"])
 def test_matches_golden(env, name, path):
     scene, sky = env
-    golden = np.asarray(
-        Image.open(os.path.join(GOLDEN_DIR, f"{name}.png")).convert("RGB"),
+    golden = load_png(os.path.join(GOLDEN_DIR, f"{name}.png")).astype(
         np.float32)
     img = np.asarray(
         render_frame(scene, make_state(**CASES[name]), sky, H, W,
@@ -91,9 +73,8 @@ def test_classic_matches_golden(env, path):
     """classic_demo.png pins the classic scene family (see classic_env)."""
     _, sky = env
     scene, st = classic_env()
-    golden = np.asarray(
-        Image.open(os.path.join(GOLDEN_DIR, "classic_demo.png"))
-        .convert("RGB"), np.float32)
+    golden = load_png(os.path.join(GOLDEN_DIR, "classic_demo.png")).astype(
+        np.float32)
     img = np.asarray(render_frame(scene, st, sky, H, W, chunk=4096,
                                   path=path), np.float32)
     diff = np.abs(img - golden)
@@ -112,8 +93,7 @@ def test_matches_golden_clustered(env, name):
                                                     ISLAND_TRI_CLUSTERS)
 
     scene, sky = env
-    golden = np.asarray(
-        Image.open(os.path.join(GOLDEN_DIR, f"{name}.png")).convert("RGB"),
+    golden = load_png(os.path.join(GOLDEN_DIR, f"{name}.png")).astype(
         np.float32)
     img = np.asarray(
         render_frame(scene, make_state(**CASES[name]), sky, H, W,
@@ -128,3 +108,41 @@ def test_matches_golden_clustered(env, name):
     rmse = np.sqrt(np.mean((diff / 255.0) ** 2))
     assert rmse < 2e-3, f"{name}/clustered: rmse {rmse}"
     assert np.mean(np.any(diff > 2.0, axis=-1)) < 0.003
+
+
+GOLDEN_PNGS = sorted(os.path.relpath(p, GOLDEN_DIR) for p in glob.glob(
+    os.path.join(GOLDEN_DIR, "**", "*.png"), recursive=True))
+
+
+@pytest.mark.parametrize("rel", GOLDEN_PNGS)
+def test_png_reader_matches_pil(rel):
+    """utils.images.load_png (numpy + zlib) decodes every committed golden
+    exactly as an independent decoder does, and re-encoding round-trips."""
+    from PIL import Image
+
+    from raytracing_cuda_tpu.utils.images import decode_png, encode_png
+
+    path = os.path.join(GOLDEN_DIR, rel)
+    img = load_png(path)
+    assert img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3
+    assert np.array_equal(img, np.asarray(Image.open(path).convert("RGB")))
+    assert np.array_equal(decode_png(encode_png(img, level=1)), img)
+
+
+def test_parity_gate_thresholds():
+    """utils.images.parity: RMSE < 2e-3 and < 0.3% of pixels off by more
+    than 2 levels; both bounds bite on their own."""
+    ref = np.full((100, 100, 3), 100, np.uint8)
+    assert parity(ref, ref) == {"rmse": 0.0, "off_fraction": 0.0, "ok": True}
+    near = ref.copy()
+    near[:2, :1] += 3                          # 0.02% of pixels off by 3
+    assert parity(near, ref)["ok"]
+    many = ref.copy()
+    many[:1, :40] += 3                         # 0.4% of pixels off by 3
+    r = parity(many, ref)
+    assert r["rmse"] < 2e-3 and not r["ok"]
+    shift = ref + 1                            # every pixel off by 1 level
+    r = parity(shift, ref)
+    assert r["off_fraction"] == 0.0 and not r["ok"]
+    with pytest.raises(ValueError, match="shape"):
+        parity(ref[:10], ref)

@@ -60,10 +60,9 @@ def test_indivisible_height_raises(setup):
 
 
 def test_sharded_pallas_matches_single_chip(setup):
-    """Megakernel inside shard_map: band-offset ray generation must make the
-    sharded pallas render bit-identical to the single-chip render of the
-    SAME pipeline (static-sky + grouped pair resolve — bands are whole rows,
-    so sky groups and anchors are identical across the two)."""
+    """The kernel inside shard_map: band-offset ray generation must make the
+    sharded render bit-identical to the single-device render of the SAME
+    pipeline (static sky stack + pair lookup)."""
     scene, sky, st = setup
     from raytracing_cuda_tpu.render.pipeline import render_frame_static_sky
     from raytracing_cuda_tpu.scene.builders import ISLAND_TRI_CLUSTERS
@@ -80,7 +79,7 @@ def test_sharded_pallas_matches_single_chip(setup):
         sky_pack=sp))
     assert np.array_equal(np.asarray(single), sharded)
 
-    # and the flat-resolve single-chip render agrees within the parity gate
+    # and the per-frame-blend single-device render agrees within the gate
     flat = np.asarray(render_frame(
         scene, st, sky, H, W, path="pallas_interpret",
         tri_clusters=ISLAND_TRI_CLUSTERS), np.float32)
@@ -96,20 +95,15 @@ def test_sharded_pallas_requires_sky_pack(setup):
 
 
 def test_sharded_wide_frame_16_group_parity(setup):
-    """At widths >= 512 the sky resolve switches to 16-pixel groups
-    (textures.sky_group_for_width); the band-local flatten must still
-    partition into the same groups as the full-frame flatten, keeping the
-    sharded render bit-identical — and the 16-group resolve itself must
-    match the oracle (this is the only CPU coverage of the group=16 path
-    every real 720p frame takes)."""
+    """A wide, short frame (16x512, several kernel blocks per row band):
+    the sharded render stays bit-identical to the single-device one, and
+    both match the oracle."""
     scene, sky, st = setup
     from raytracing_cuda_tpu.render.pipeline import render_frame_static_sky
     from raytracing_cuda_tpu.scene.builders import ISLAND_TRI_CLUSTERS
-    from raytracing_cuda_tpu.scene.textures import (sky_group_for_width,
-                                                    sky_static_init)
+    from raytracing_cuda_tpu.scene.textures import sky_static_init
 
-    WH, WW = 16, 512                     # band 8 x 512 = 4096 ≡ 0 (mod 16)
-    assert sky_group_for_width(WW) == 16
+    WH, WW = 16, 512
     mesh = make_mesh(2)
     sp = sky_static_init(sky)
     single = render_frame_static_sky(
@@ -130,7 +124,7 @@ def test_sharded_wide_frame_16_group_parity(setup):
 def test_sharded_static_sky_repeatable_and_traces_one_kernel(setup):
     """Static-sky sharded render: deterministic across calls (the static
     pack is read-only state) and the whole sharded program contains exactly
-    ONE pallas_call (row0 rides the SMEM params vector — no per-band kernel
+    ONE pallas_call (row0 rides the params vector — no per-band kernel
     variants)."""
     scene, sky, st = setup
     from raytracing_cuda_tpu.scene.builders import ISLAND_TRI_CLUSTERS
@@ -355,28 +349,14 @@ def test_render_script_dp_matches_engine_frames():
     with pytest.raises(ValueError, match="devices"):
         make_hybrid_mesh(8, 2)
 
-    # Engine-level hybrid plumbing (render_script_dp n_rows>1): sky-mode
-    # forwarding, device-count default, interleave forwarding — the spots
-    # where pack/resolve mismatches would hide. Fresh engine so its state
-    # starts at st0; grouped pack engine first, then a FLAT sky_mode
-    # engine (the pack rank the hybrid's own 'auto' would NOT pick).
+    # Engine-level hybrid plumbing (render_script_dp n_rows>1): device-count
+    # default and interleave forwarding. Fresh engine so its state starts
+    # at st0.
     from raytracing_cuda_tpu.utils.config import RenderConfig as RC
 
-    for mode in ("auto", "flat"):
-        e2 = Engine(RC(width=128, height=64, sky_source="procedural",
-                       procedural_sky_shape=(32, 64), sky_mode=mode,
-                       path="pallas_interpret", chunk=2048,
-                       shard_interleave=2))
-        e2.set_state(st0)
-        imgs = np.asarray(e2.render_script_dp(avs[:4], 2, n_rows=2))
-        if mode == "auto":
-            ref = seq[:4]
-        else:
-            e3 = Engine(RC(width=128, height=64, sky_source="procedural",
-                           procedural_sky_shape=(32, 64), sky_mode=mode,
-                           path="pallas_interpret", chunk=2048))
-            e3.set_state(st0)
-            ref = np.stack([np.asarray(e3.step_and_frame(Action.idle(),
-                                                         1 / 30))
-                            for _ in range(4)])
-        assert np.array_equal(imgs, ref), mode
+    e2 = Engine(RC(width=128, height=64, sky_source="procedural",
+                   procedural_sky_shape=(32, 64), path="pallas_interpret",
+                   chunk=2048, shard_interleave=2))
+    e2.set_state(st0)
+    imgs = np.asarray(e2.render_script_dp(avs[:4], 2, n_rows=2))
+    assert np.array_equal(imgs, seq[:4])

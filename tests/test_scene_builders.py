@@ -107,17 +107,25 @@ def test_compact_consistency(scene):
 
 def test_cluster_partitions_cover_scene_with_zero_padding(scene):
     """The static cluster tuples must tile the compact arrays exactly, and
-    every count must be a multiple of the 8-row sublane pad — padding rows
-    sweep at full cost (docs/PERFORMANCE.md: fine zero-pad clusters measured
-    13.2 -> 11.0 ms; a single padded 11-row cluster regressed it)."""
-    from raytracing_cuda_tpu.render.pallas_rt import MAX_CLUSTERS
+    the kernel's cluster table must cover the coefficient table's object
+    rows contiguously, with nothing left over and no padding rows."""
+    from raytracing_cuda_tpu.render.pallas_rt import (K_END, K_OCCL, K_START,
+                                                      cluster_table,
+                                                      pack_scene)
     from raytracing_cuda_tpu.scene.builders import (ISLAND_SPH_CLUSTERS,
-                                                    ISLAND_TRI_CLUSTERS)
+                                                    ISLAND_TRI_CLUSTERS,
+                                                    ISLAND_TRI_SUBS)
 
     assert sum(ISLAND_TRI_CLUSTERS) == scene.tri_gidx.shape[0]
     assert sum(c for c, _ in ISLAND_SPH_CLUSTERS) == scene.sph_gidx.shape[0]
-    # island box (10) is the only non-multiple-of-8 cluster (pads to 16)
-    assert all(c % 8 == 0 for c in ISLAND_TRI_CLUSTERS[1:])
-    assert len(ISLAND_TRI_CLUSTERS) + len(ISLAND_SPH_CLUSTERS) <= MAX_CLUSTERS
     # emissive sun/moon proxy cluster must stay shadow-inert and last
     assert ISLAND_SPH_CLUSTERS[-1] == (2, False)
+    table, n_tri = cluster_table(scene, ISLAND_TRI_CLUSTERS,
+                                 ISLAND_SPH_CLUSTERS, ISLAND_TRI_SUBS)
+    table = np.asarray(table)
+    assert n_tri == sum(ISLAND_TRI_SUBS)
+    assert len(table) == n_tri + len(ISLAND_SPH_CLUSTERS)
+    assert table[0, K_START] == 1                     # row 0 is the plane
+    assert np.array_equal(table[1:, K_START], table[:-1, K_END])
+    assert table[-1, K_END] == pack_scene(scene).shape[0]
+    assert list(table[:, K_OCCL]) == [1.0] * (len(table) - 1) + [0.0]

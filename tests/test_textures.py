@@ -66,9 +66,6 @@ def test_procedural_skies_deterministic():
     assert a.shape == (4, 16, 32, 3) and a.dtype == np.uint8
 
 
-# --- grouped sky resolve ------------------------------------------------------
-
-
 def _smooth_dirs(h_img, w_img, outlier_frac=0.0, seed=3):
     """A primary-ray-like smooth direction field with optional incoherent
     outliers (stand-ins for divergent reflection misses at silhouettes)."""
@@ -85,152 +82,14 @@ def _smooth_dirs(h_img, w_img, outlier_frac=0.0, seed=3):
     return jnp.asarray(d)
 
 
-def test_grouped_resolve_exact_on_covered():
-    """Covered pixels must return the IDENTICAL texel as the flat per-pixel
-    gather, at several day fractions (sky rotation crosses the x seam)."""
-    from raytracing_cuda_tpu.scene.textures import (grouped_sky_ok,
-                                                    pack_sky_phases,
-                                                    sample_sky_grouped)
-
-    rng = np.random.default_rng(0)
-    H, W = 64, 128
-    assert grouped_sky_ok(H, W)
-    blended = jnp.asarray(rng.integers(0, 256, (H, W, 3)).astype(np.uint8))
-    packed = pack_sky(blended)
-    phases = pack_sky_phases(blended)
-    d = _smooth_dirs(33, 57, outlier_frac=0.02)    # odd sizes exercise padding
-    valid = jnp.asarray(rng.random((33, 57)) > 0.3)
-    for day_frac in (0.0, 0.37, 0.93):
-        ref = np.asarray(sample_sky_packed(packed, H, W, d, day_frac))
-        got, cov = sample_sky_grouped(phases, H, W, d, day_frac,
-                                      valid=valid, with_coverage=True)
-        got, cov = np.asarray(got), np.asarray(cov)
-        m = cov & np.asarray(valid)
-        assert m.mean() > 0.5
-        assert np.array_equal(got[m], ref[m])
-
-
-def test_grouped_resolve_coherent_field_fully_covered():
-    """A dense primary-ray field (many pixels per texel, no outliers) must be
-    100% covered — the grouped path is then bit-exact with the flat path."""
-    from raytracing_cuda_tpu.scene.textures import (pack_sky_phases,
-                                                    sample_sky_grouped)
-
-    rng = np.random.default_rng(7)
-    H, W = 64, 128
-    blended = jnp.asarray(rng.integers(0, 256, (H, W, 3)).astype(np.uint8))
-    packed = pack_sky(blended)
-    phases = pack_sky_phases(blended)
-    # 128 pixels across 0.5 rad of yaw → ~0.08 texel/pixel at this sky size
-    yy, xx = np.meshgrid(np.linspace(0.1, 0.25, 48),
-                         np.linspace(1.2, 1.7, 128), indexing="ij")
-    d = np.stack([np.sin(xx), yy, np.cos(xx)], axis=-1).astype(np.float32)
-    d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True))
-    ref = np.asarray(sample_sky_packed(packed, H, W, d, 0.11))
-    got, cov = sample_sky_grouped(phases, H, W, d, 0.11, with_coverage=True)
-    assert np.asarray(cov).all()
-    assert np.array_equal(np.asarray(got), ref)
-
-
-def test_grouped_resolve_invalid_pixels_cannot_poison_groups():
-    """Hit pixels (valid=False) carry meaningless directions; interleaving
-    them densely must not perturb the valid pixels' texels."""
-    from raytracing_cuda_tpu.scene.textures import (pack_sky_phases,
-                                                    sample_sky_grouped)
-
-    rng = np.random.default_rng(9)
-    H, W = 64, 128
-    blended = jnp.asarray(rng.integers(0, 256, (H, W, 3)).astype(np.uint8))
-    packed = pack_sky(blended)
-    phases = pack_sky_phases(blended)
-    d = np.asarray(_smooth_dirs(16, 64))
-    valid = rng.random((16, 64)) > 0.5
-    junk = rng.normal(size=d.shape).astype(np.float32)
-    junk /= np.linalg.norm(junk, axis=-1, keepdims=True)
-    d_poisoned = jnp.asarray(np.where(valid[..., None], d, junk))
-    ref = np.asarray(sample_sky_packed(packed, H, W, jnp.asarray(d), 0.2))
-    got, cov = sample_sky_grouped(phases, H, W, d_poisoned, 0.2,
-                                  valid=jnp.asarray(valid), with_coverage=True)
-    m = np.asarray(cov) & valid
-    assert m.sum() > 0.9 * valid.sum()
-    assert np.array_equal(np.asarray(got)[m], ref[m])
-
-
-def test_grouped_resolve_knobs_exact_on_covered():
-    """Every SKY_SELECT x SKY_ANCHOR knob combo (the A/B space of
-    experiments/ab_resolve.py) must stay exact on covered pixels and keep
-    coverage high on an outlier-bearing field — the knobs may only trade
-    COVERAGE, never correctness."""
-    import itertools
-
-    from raytracing_cuda_tpu.scene import textures as T
-
-    rng = np.random.default_rng(13)
-    H, W = 64, 128
-    blended = jnp.asarray(rng.integers(0, 256, (H, W, 3)).astype(np.uint8))
-    packed = pack_sky(blended)
-    phases = T.pack_sky_phases(blended)
-    d = _smooth_dirs(32, 64, outlier_frac=0.03)
-    valid = jnp.asarray(rng.random((32, 64)) > 0.3)
-    ref = np.asarray(sample_sky_packed(packed, H, W, d, 0.29))
-    old = (T.SKY_SELECT, T.SKY_ANCHOR)
-    try:
-        for sel, anc in itertools.product(("onehot", "twostage", "binary"),
-                                          ("median", "mean", "minpix")):
-            T.SKY_SELECT, T.SKY_ANCHOR = sel, anc
-            got, cov = T.sample_sky_grouped(phases, H, W, d, 0.29,
-                                            valid=valid, with_coverage=True)
-            m = np.asarray(cov) & np.asarray(valid)
-            frac = m.sum() / np.asarray(valid).sum()
-            assert frac > 0.9, f"{sel}/{anc}: coverage {frac}"
-            assert np.array_equal(np.asarray(got)[m], ref[m]), f"{sel}/{anc}"
-    finally:
-        T.SKY_SELECT, T.SKY_ANCHOR = old
-
-
-def test_grouped_resolve_gt_layout_bit_identical():
-    """The (G, NG) transposed layout (SKY_LAYOUT="gt"/"auto", the full-lane
-    TPU dataflow) must return bit-identical texels AND coverage vs the
-    (NG, G) reference dataflow ("flat"), pure-band and mid-fade, with a
-    valid mask and outliers — it is a layout change, not an algorithm
-    change. Width 512 engages the 16-pixel-group (gt-eligible) path."""
-    from raytracing_cuda_tpu.scene import textures as T
-
-    rng = np.random.default_rng(17)
-    H, W = 64, 128
-    tex = rng.integers(0, 256, (4, H, W, 3)).astype(np.uint8)
-    stack = T.sky_static_init(jnp.asarray(tex))
-    d = _smooth_dirs(8, 512, outlier_frac=0.03)
-    valid = jnp.asarray(rng.random((8, 512)) > 0.3)
-    assert T.sky_group_for_width(512) == 16
-    old = T.SKY_LAYOUT
-    try:
-        for sv in ([0, 1, 0, 0], [0.25, 0.75, 0, 0]):
-            svj = jnp.asarray(sv, np.float32)
-            outs = {}
-            for lay in ("flat", "auto"):
-                T.SKY_LAYOUT = lay
-                got, cov = T.sample_sky_grouped_pair(
-                    stack, H, W, d, 0.37, svj, valid=valid,
-                    with_coverage=True)
-                outs[lay] = (np.asarray(got), np.asarray(cov))
-            assert np.array_equal(outs["flat"][0], outs["auto"][0]), sv
-            assert np.array_equal(outs["flat"][1], outs["auto"][1]), sv
-            assert outs["auto"][1].mean() > 0.9
-    finally:
-        T.SKY_LAYOUT = old
-
-
 def test_sky_static_init_shapes():
-    from raytracing_cuda_tpu.scene.textures import (SKY_TILE_X, SKY_TILE_Y,
-                                                    sky_static_init)
+    from raytracing_cuda_tpu.scene.textures import pack_sky, sky_static_init
 
     tex = procedural_skies(64, 128)
-    sp = sky_static_init(jnp.asarray(tex))
-    assert sp.shape == (4, 4 * (64 // SKY_TILE_Y) * (128 // SKY_TILE_X),
-                        SKY_TILE_Y * SKY_TILE_X)
-    sp2 = sky_static_init(jnp.asarray(tex), grouped=False)
-    assert sp2.shape == (4, 64 * 128)
+    sp = np.asarray(sky_static_init(jnp.asarray(tex)))
+    assert sp.shape == (4, 64 * 128) and sp.dtype == np.int32
+    for i in range(4):
+        assert np.array_equal(sp[i], np.asarray(pack_sky(jnp.asarray(tex[i]))))
 
 
 def test_sky_blend_bands_picks_active_panoramas():
@@ -251,21 +110,18 @@ def test_sky_blend_bands_picks_active_panoramas():
 
 
 def test_pair_resolve_bit_identical_to_preblended():
-    """The static-stack pair resolve must be bit-identical to resolving a
-    pre-blended pack — in pure bands (one-gather branch) AND mid-fade
-    (two-gather truncated blend), grouped and flat."""
+    """The static-stack pair lookup must be bit-identical to looking up a
+    pre-blended pack — in pure bands (one-fetch branch) AND mid-fade
+    (two-fetch truncated blend)."""
     from raytracing_cuda_tpu.scene.textures import (
-        pack_sky_phases, pack_sky, sample_sky_grouped,
-        sample_sky_grouped_pair, sample_sky_packed_pair, sky_static_init)
+        pack_sky, sample_sky_packed_pair, sky_static_init)
 
     rng = np.random.default_rng(21)
     H, W = 64, 128
     tex = rng.integers(0, 256, (4, H, W, 3)).astype(np.uint8)
     texj = jnp.asarray(tex)
-    sp_grouped = sky_static_init(texj)
-    sp_flat = sky_static_init(texj, grouped=False)
+    sp_flat = sky_static_init(texj)
     d = _smooth_dirs(32, 64, outlier_frac=0.02)
-    valid = jnp.asarray(rng.random((32, 64)) > 0.3)
     for sv in ([0, 1, 0, 0], [0.25, 0.75, 0, 0], [0, 0, 0.95, 0.05],
                [0.5, 0, 0, 0.5]):
         svj = jnp.asarray(sv, jnp.float32)
@@ -275,53 +131,3 @@ def test_pair_resolve_bit_identical_to_preblended():
         got_flat = np.asarray(sample_sky_packed_pair(sp_flat, H, W, d, 0.37,
                                                      svj))
         assert np.array_equal(got_flat, ref_flat), f"flat {sv}"
-        ref_g, ref_cov = sample_sky_grouped(
-            pack_sky_phases(blended), H, W, d, 0.37, valid=valid,
-            with_coverage=True)
-        got_g, got_cov = sample_sky_grouped_pair(
-            sp_grouped, H, W, d, 0.37, svj, valid=valid, with_coverage=True)
-        assert np.array_equal(np.asarray(got_cov), np.asarray(ref_cov))
-        assert np.array_equal(np.asarray(got_g), np.asarray(ref_g)), \
-            f"grouped {sv}"
-
-
-def test_apply_tuned_sky_knobs(tmp_path):
-    """autotune.json's sky.resolved overrides the shipped knobs at import
-    (the launch_knobs pattern); unknown keys, wrong types, and missing or
-    malformed files are ignored."""
-    import json
-
-    import raytracing_cuda_tpu.scene.textures as tex
-
-    keys = ("SKY_SELECT", "SKY_ANCHOR", "SKY_LAYOUT", "SKY_PASSES")
-    saved = {k: getattr(tex, k) for k in keys}
-    try:
-        p = tmp_path / "autotune.json"
-        p.write_text(json.dumps({"sky": {"resolved": {
-            "SKY_SELECT": "onehot", "SKY_PASSES": 3,
-            "SKY_BOGUS": "x", "SKY_ANCHOR": 7,
-            "SKY_LAYOUT": "medain"}}}))           # typo'd value: ignored
-        tex._apply_tuned_sky_knobs(str(p))
-        assert tex.SKY_SELECT == "onehot" and tex.SKY_PASSES == 3
-        assert tex.SKY_ANCHOR == saved["SKY_ANCHOR"]   # wrong type: ignored
-        assert tex.SKY_LAYOUT == saved["SKY_LAYOUT"]   # bad value: ignored
-        assert "SKY_BOGUS" not in vars(tex)            # unknown key: ignored
-        tex._apply_tuned_sky_knobs(str(tmp_path / "missing.json"))
-        (tmp_path / "bad.json").write_text("{not json")
-        tex._apply_tuned_sky_knobs(str(tmp_path / "bad.json"))
-        # structurally-wrong-but-valid JSON must not raise at import time
-        (tmp_path / "null.json").write_text('{"sky": null}')
-        tex._apply_tuned_sky_knobs(str(tmp_path / "null.json"))
-        (tmp_path / "arr.json").write_text('[1, 2]')
-        tex._apply_tuned_sky_knobs(str(tmp_path / "arr.json"))
-        (tmp_path / "list.json").write_text(
-            '{"sky": {"resolved": {"SKY_PASSES": [2]}}}')
-        tex._apply_tuned_sky_knobs(str(tmp_path / "list.json"))
-        assert tex.SKY_SELECT == "onehot"              # unchanged by all
-        # SHIPPED_SKY_KNOBS stays the compiled-in defaults (tune-sky flips
-        # candidates relative to it — a committed tune must never ratchet)
-        assert tex.SHIPPED_SKY_KNOBS["SKY_SELECT"] == "twostage"
-        assert tex.SHIPPED_SKY_KNOBS["SKY_PASSES"] == 2
-    finally:
-        for k, v in saved.items():
-            setattr(tex, k, v)

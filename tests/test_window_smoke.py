@@ -74,9 +74,9 @@ def test_run_window_screenshot_key(tmp_path, monkeypatch):
     assert win.run_window(CFG, max_frames=2) == 2
     shots = glob.glob("screenshot_*.png")
     assert len(shots) == 1
-    from PIL import Image
+    from raytracing_cuda_tpu.utils.images import load_png
 
-    img = np.asarray(Image.open(shots[0]).convert("RGB"))
+    img = load_png(shots[0])
     assert img.shape == (CFG.height, CFG.width, 3) and img.any()
 
 
